@@ -1,7 +1,8 @@
-# Multi-stage image for the TPU-native vector DB server.
+# Multi-stage image for the vector DB server on NVIDIA GPUs.
 # Counterpart of the reference's CUDA image (Dockerfile:3-133): builder
 # stage compiles the native host runtime; the runtime stage is a slim
-# Python image with the TPU-enabled JAX stack. Runs as non-root with a
+# Python image with the CUDA-enabled JAX stack (CUDA libraries come as pip
+# wheels; the host needs only the NVIDIA driver). Runs as non-root with a
 # gRPC-health healthcheck, as the reference does (Dockerfile:108-127).
 
 FROM python:3.12-slim AS builder
@@ -9,19 +10,20 @@ RUN apt-get update && apt-get install -y --no-install-recommends \
         g++ make protobuf-compiler && rm -rf /var/lib/apt/lists/*
 WORKDIR /build
 COPY pyproject.toml ./
-COPY cuda_acceleratedvectordatabaseengine_tpu ./cuda_acceleratedvectordatabaseengine_tpu
+COPY cuda_acceleratedvectordatabaseengine ./cuda_acceleratedvectordatabaseengine
 # native host runtime (libvdbhost.so) + generated protos
-RUN make -C cuda_acceleratedvectordatabaseengine_tpu/native \
-    && bash cuda_acceleratedvectordatabaseengine_tpu/server/proto/regen.sh \
+RUN make -C cuda_acceleratedvectordatabaseengine/native \
+    && bash cuda_acceleratedvectordatabaseengine/server/proto/regen.sh \
     && pip install --no-cache-dir build && python -m build --wheel
 
 FROM python:3.12-slim AS runtime
 RUN apt-get update && apt-get install -y --no-install-recommends \
         libgomp1 && rm -rf /var/lib/apt/lists/* \
     && useradd --create-home --uid 10001 vdb
-# TPU runtime: jax[tpu] pulls libtpu; grpcio/pyarrow/prometheus for serving.
-RUN pip install --no-cache-dir "jax[tpu]" \
-        -f https://storage.googleapis.com/jax-releases/libtpu_releases.html \
+# GPU runtime: jax[cuda12] pulls the CUDA 12 libraries and JAX's CUDA
+# plugin (XLA and the Pallas Triton kernels); grpcio/pyarrow/prometheus for
+# serving.
+RUN pip install --no-cache-dir "jax[cuda12]" \
         grpcio protobuf pyarrow prometheus-client pyyaml numpy
 COPY --from=builder /build/dist/*.whl /tmp/
 RUN pip install --no-cache-dir /tmp/*.whl && rm /tmp/*.whl
@@ -33,8 +35,8 @@ EXPOSE 50051 8080
 # probeable with grpc_health_probe or the bundled client.
 HEALTHCHECK --interval=30s --timeout=10s --start-period=60s \
   CMD python -c "import grpc; \
-from cuda_acceleratedvectordatabaseengine_tpu.server.grpc_api import HealthClient; \
-from cuda_acceleratedvectordatabaseengine_tpu.server.proto import health_pb2; \
+from cuda_acceleratedvectordatabaseengine.server.grpc_api import HealthClient; \
+from cuda_acceleratedvectordatabaseengine.server.proto import health_pb2; \
 ch = grpc.insecure_channel('127.0.0.1:50051'); \
 assert HealthClient(ch).Check(health_pb2.HealthCheckRequest(), timeout=5).status == 1"
 

@@ -4,10 +4,10 @@ set -euo pipefail
 cd "$(dirname "$0")/.."
 
 echo "[build] native host runtime"
-make -C cuda_acceleratedvectordatabaseengine_tpu/native
+make -C cuda_acceleratedvectordatabaseengine/native
 
 echo "[build] protobuf codegen"
-bash cuda_acceleratedvectordatabaseengine_tpu/server/proto/regen.sh
+bash cuda_acceleratedvectordatabaseengine/server/proto/regen.sh
 
 if [[ "${1:-}" == "--wheel" ]]; then
   echo "[build] wheel"
@@ -15,6 +15,6 @@ if [[ "${1:-}" == "--wheel" ]]; then
 fi
 if [[ "${1:-}" == "--image" ]]; then
   echo "[build] docker image"
-  docker build -t vdb-tpu:latest .
+  docker build -t vdb-gpu:latest .
 fi
 echo "[build] done"

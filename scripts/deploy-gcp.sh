@@ -1,22 +1,24 @@
 #!/usr/bin/env bash
-# Deploy to a GKE cluster with TPU v5e node pools (counterpart of the
+# Deploy to a GKE cluster with an NVIDIA H100 node pool (counterpart of the
 # reference's scripts/deploy-gcp.sh GPU flow).
 set -euo pipefail
 PROJECT="${PROJECT:?set PROJECT}"
-CLUSTER="${CLUSTER:-vdb-tpu}"
-ZONE="${ZONE:-us-west4-a}"
-IMAGE="gcr.io/${PROJECT}/vdb-tpu:latest"
+CLUSTER="${CLUSTER:-vdb-gpu}"
+ZONE="${ZONE:-us-central1-a}"
+IMAGE="gcr.io/${PROJECT}/vdb-gpu:latest"
 
 echo "[deploy] building image ${IMAGE}"
 docker build -t "${IMAGE}" .
 docker push "${IMAGE}"
 
-echo "[deploy] ensuring TPU node pool"
-gcloud container node-pools describe tpu-v5e --cluster "${CLUSTER}" \
+echo "[deploy] ensuring GPU node pool"
+gcloud container node-pools describe h100 --cluster "${CLUSTER}" \
     --zone "${ZONE}" --project "${PROJECT}" >/dev/null 2>&1 || \
-gcloud container node-pools create tpu-v5e \
+gcloud container node-pools create h100 \
     --cluster "${CLUSTER}" --zone "${ZONE}" --project "${PROJECT}" \
-    --machine-type ct5lp-hightpu-8t --num-nodes 2
+    --machine-type a3-highgpu-1g \
+    --accelerator type=nvidia-h100-80gb,count=1,gpu-driver-version=latest \
+    --num-nodes 2
 
 echo "[deploy] applying manifests"
 kubectl apply -f k8s/namespace.yaml

@@ -35,15 +35,15 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from cuda_acceleratedvectordatabaseengine_tpu.ops.distance import (
+    from cuda_acceleratedvectordatabaseengine.ops.distance import (
         Metric,
         pairwise_distance,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.ops.kmeans import (
+    from cuda_acceleratedvectordatabaseengine.ops.kmeans import (
         kmeans_assign,
         kmeans_fit,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.ops.topk import topk_smallest
+    from cuda_acceleratedvectordatabaseengine.ops.topk import topk_smallest
 
     rng = np.random.default_rng(0)
     centers = rng.standard_normal((args.nballs, args.dim)).astype(np.float32)
@@ -61,10 +61,10 @@ def main():
     t_fit = time.time() - t0
     # The bench's actual placement: capacity-clamped balanced 4-choice
     # assignment — spills from shared lists are what probes miss.
-    from cuda_acceleratedvectordatabaseengine_tpu.models.ivf_flat import (
+    from cuda_acceleratedvectordatabaseengine.models.ivf_flat import (
         _balance_assignments,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.ops.kmeans import (
+    from cuda_acceleratedvectordatabaseengine.ops.kmeans import (
         kmeans_assign_topk,
     )
 

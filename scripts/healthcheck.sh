@@ -25,16 +25,15 @@ EOF
 # 2. grpc.health.v1 Check == SERVING
 check "grpc health SERVING" python - <<EOF
 import grpc
-from cuda_acceleratedvectordatabaseengine_tpu.server.grpc_api import HealthClient
-from cuda_acceleratedvectordatabaseengine_tpu.server.proto import health_pb2
+from cuda_acceleratedvectordatabaseengine.server.grpc_api import HealthClient
+from cuda_acceleratedvectordatabaseengine.server.proto import health_pb2
 ch = grpc.insecure_channel("$TARGET")
 assert HealthClient(ch).Check(health_pb2.HealthCheckRequest(), timeout=5).status == 1
 EOF
 
 # 3. device usable — via the SERVER's exported device gauge, not a local
-# probe: opening a second device process here would contend with the
-# server for the accelerator (and on remote-attached TPUs can wedge the
-# session). The server's health poller owns the device probe.
+# probe: a second JAX process here would contend with the server for the
+# card's memory. The server's health poller owns the device probe.
 check "device usable (server gauge)" python - <<EOF
 import urllib.request
 text = urllib.request.urlopen("http://$METRICS/metrics", timeout=5).read()
@@ -58,8 +57,8 @@ EOF
 # 6. functional search RPC error contract (INVALID_ARGUMENT on empty query)
 check "search validation" python - <<EOF
 import grpc
-from cuda_acceleratedvectordatabaseengine_tpu.server.grpc_api import QueryServiceClient
-from cuda_acceleratedvectordatabaseengine_tpu.server.proto import vdb_pb2
+from cuda_acceleratedvectordatabaseengine.server.grpc_api import QueryServiceClient
+from cuda_acceleratedvectordatabaseengine.server.proto import vdb_pb2
 ch = grpc.insecure_channel("$TARGET")
 try:
     QueryServiceClient(ch).Search(vdb_pb2.SearchRequest(topk=1, index="x"), timeout=5)

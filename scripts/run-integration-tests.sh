@@ -20,7 +20,7 @@ cleanup() {
 trap cleanup EXIT
 
 echo "[it] starting server (data=${DATA})"
-python -m cuda_acceleratedvectordatabaseengine_tpu.server.main \
+python -m cuda_acceleratedvectordatabaseengine.server.main \
     --address "127.0.0.1:${PORT}" --data-path "${DATA}/vdb" \
     --metrics-port "${MPORT}" > "${LOG}" 2>&1 &
 SRV_PID=$!
@@ -41,9 +41,9 @@ bash scripts/healthcheck.sh "127.0.0.1:${PORT}" "127.0.0.1:${MPORT}" || exit 1
 echo "[it] functional lifecycle over the wire"
 python - <<EOF || exit 1
 import time, grpc, numpy as np
-from cuda_acceleratedvectordatabaseengine_tpu.server.grpc_api import (
+from cuda_acceleratedvectordatabaseengine.server.grpc_api import (
     AdminServiceClient, QueryServiceClient)
-from cuda_acceleratedvectordatabaseengine_tpu.server.proto import vdb_pb2
+from cuda_acceleratedvectordatabaseengine.server.proto import vdb_pb2
 ch = grpc.insecure_channel("127.0.0.1:${PORT}")
 grpc.channel_ready_future(ch).result(timeout=10)
 admin, query = AdminServiceClient(ch), QueryServiceClient(ch)
@@ -52,7 +52,7 @@ admin.CreateIndex(vdb_pb2.CreateIndexRequest(name="it", dimension=16, nlist=8))
 admin.AddVectors(vdb_pb2.AddVectorsRequest(index="it",
     vectors=[vdb_pb2.Vector(id=i, values=rng.standard_normal(16)) for i in range(500)]))
 admin.BuildEpoch(vdb_pb2.BuildEpochRequest(index="it"))
-deadline = time.time() + 300  # tolerates cold relay handoff + compiles
+deadline = time.time() + 300  # tolerates cold compiles
 while True:
     try:
         admin.ActivateEpoch(vdb_pb2.ActivateEpochRequest(index="it")); break
@@ -87,7 +87,7 @@ EOF
 
 if [[ "${RUN_LOAD_TEST}" == "true" ]]; then
   echo "[it] load test"
-  python -m cuda_acceleratedvectordatabaseengine_tpu.tools.load_test \
+  python -m cuda_acceleratedvectordatabaseengine.tools.load_test \
       --target "127.0.0.1:${PORT}" --index it --dimension 16 \
       --threads 4 --requests 25 --nprobe 8 || exit 1
 fi

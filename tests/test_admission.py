@@ -14,18 +14,18 @@ import grpc
 import numpy as np
 import pytest
 
-from cuda_acceleratedvectordatabaseengine_tpu.server.balancer import (
+from cuda_acceleratedvectordatabaseengine.server.balancer import (
     CircuitState,
     ConcurrencyLimiter,
 )
-from cuda_acceleratedvectordatabaseengine_tpu.server.config import ServerConfig
-from cuda_acceleratedvectordatabaseengine_tpu.server.grpc_api import (
+from cuda_acceleratedvectordatabaseengine.server.config import ServerConfig
+from cuda_acceleratedvectordatabaseengine.server.grpc_api import (
     AdminServiceClient,
     QueryServiceClient,
 )
-from cuda_acceleratedvectordatabaseengine_tpu.server.main import build_server
-from cuda_acceleratedvectordatabaseengine_tpu.server.proto import vdb_pb2
-from cuda_acceleratedvectordatabaseengine_tpu.server.ratelimit import (
+from cuda_acceleratedvectordatabaseengine.server.main import build_server
+from cuda_acceleratedvectordatabaseengine.server.proto import vdb_pb2
+from cuda_acceleratedvectordatabaseengine.server.ratelimit import (
     RateLimiter,
 )
 
@@ -253,7 +253,7 @@ def test_oversized_batch_rejected(adm_server):
     """Per-request rate limiting needs a per-request work bound: more than
     MAX_QUERIES queries in one request is INVALID_ARGUMENT (the
     repeated-Vector form shares the same cap in _validate)."""
-    from cuda_acceleratedvectordatabaseengine_tpu.server.service import (
+    from cuda_acceleratedvectordatabaseengine.server.service import (
         MAX_QUERIES,
     )
     query = adm_server["query"]

@@ -13,16 +13,16 @@ import time
 import numpy as np
 import pytest
 
-from cuda_acceleratedvectordatabaseengine_tpu import (
+from cuda_acceleratedvectordatabaseengine import (
     IVFFlatConfig,
     IVFFlatIndex,
     SearchParams,
 )
-from cuda_acceleratedvectordatabaseengine_tpu.builder import (
+from cuda_acceleratedvectordatabaseengine.builder import (
     build_index_chunked,
     chunked_capacity,
 )
-from cuda_acceleratedvectordatabaseengine_tpu.storage import ArrowStorage
+from cuda_acceleratedvectordatabaseengine.storage import ArrowStorage
 
 DIM = 16
 
@@ -134,10 +134,10 @@ def _wait_build(engine, name, deadline_s=120):
 def test_build_epoch_from_source_is_chunked(tmp_path, rng, spy_reads):
     """BuildEpoch with a source file: every host read is ≤ one chunk
     (never the whole corpus), and the activated epoch serves."""
-    from cuda_acceleratedvectordatabaseengine_tpu.server.config import (
+    from cuda_acceleratedvectordatabaseengine.server.config import (
         ServerConfig,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.server.service import (
+    from cuda_acceleratedvectordatabaseengine.server.service import (
         VdbEngine,
     )
 
@@ -175,13 +175,13 @@ def test_build_epoch_pq_capacity_chunked(tmp_path, rng):
     import pyarrow as pa
     import pyarrow.ipc as ipc
 
-    from cuda_acceleratedvectordatabaseengine_tpu.server.config import (
+    from cuda_acceleratedvectordatabaseengine.server.config import (
         ServerConfig,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.server.service import (
+    from cuda_acceleratedvectordatabaseengine.server.service import (
         VdbEngine,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.storage.snapshot import (
+    from cuda_acceleratedvectordatabaseengine.storage.snapshot import (
         VECTORS_FILE,
     )
 
@@ -218,10 +218,10 @@ def test_build_epoch_pq_capacity_chunked(tmp_path, rng):
 def test_build_index_cli_chunked(tmp_path, rng, spy_reads, capsys):
     """vdb-build-index --source streams chunks; the snapshot round-trips
     and every read stays within --chunk-rows."""
-    from cuda_acceleratedvectordatabaseengine_tpu.storage.snapshot import (
+    from cuda_acceleratedvectordatabaseengine.storage.snapshot import (
         load_ivf_flat,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.tools.build_index import (
+    from cuda_acceleratedvectordatabaseengine.tools.build_index import (
         main,
     )
 

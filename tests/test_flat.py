@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from cuda_acceleratedvectordatabaseengine_tpu import FlatIndex
-from cuda_acceleratedvectordatabaseengine_tpu.models.arena import INVALID_ID
+from cuda_acceleratedvectordatabaseengine import FlatIndex
+from cuda_acceleratedvectordatabaseengine.models.arena import INVALID_ID
 
 
 @pytest.mark.parametrize("metric", ["L2", "InnerProduct", "Cosine"])

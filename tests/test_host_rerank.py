@@ -7,19 +7,19 @@ declared host tier (``format/storage.h:124-173``)."""
 import numpy as np
 import pytest
 
-from cuda_acceleratedvectordatabaseengine_tpu import (
+from cuda_acceleratedvectordatabaseengine import (
     IVFPQConfig,
     IVFPQIndex,
     SearchParams,
 )
-from cuda_acceleratedvectordatabaseengine_tpu.io_host.host_rerank import (
+from cuda_acceleratedvectordatabaseengine.io_host.host_rerank import (
     HostReranker,
 )
-from cuda_acceleratedvectordatabaseengine_tpu.io_host.streaming import (
+from cuda_acceleratedvectordatabaseengine.io_host.streaming import (
     HostListStore,
 )
-from cuda_acceleratedvectordatabaseengine_tpu.models.arena import INVALID_ID
-from cuda_acceleratedvectordatabaseengine_tpu.ops.distance import Metric
+from cuda_acceleratedvectordatabaseengine.models.arena import INVALID_ID
+from cuda_acceleratedvectordatabaseengine.ops.distance import Metric
 
 
 def _recall(found_ids, true_ids):
@@ -110,7 +110,7 @@ def test_ivf_pq_host_rerank_recall(rng, oracle, metric):
     assert idx.raw is None
 
     # The store mirrors the index's list structure (same centroids/assigns).
-    from cuda_acceleratedvectordatabaseengine_tpu.ops.kmeans import (
+    from cuda_acceleratedvectordatabaseengine.ops.kmeans import (
         kmeans_assign,
     )
     import jax.numpy as jnp
@@ -180,7 +180,7 @@ def test_native_rerank_matches_numpy(rng, metric, store_dtype):
     """The fused C++ rerank (native.vdb_rerank) must match the NumPy path
     on every metric and store dtype — including INVALID_ID padding,
     unknown ids, and shortlists shorter than k."""
-    from cuda_acceleratedvectordatabaseengine_tpu import native
+    from cuda_acceleratedvectordatabaseengine import native
 
     if not native.available():
         pytest.skip("native host runtime unavailable")
@@ -236,7 +236,7 @@ def test_adaptive_margin_rerank(rng, oracle):
     idx = IVFPQIndex(cfg)
     idx.train(x)
     idx.add(x)
-    from cuda_acceleratedvectordatabaseengine_tpu.ops.kmeans import (
+    from cuda_acceleratedvectordatabaseengine.ops.kmeans import (
         kmeans_assign,
     )
     import jax.numpy as jnp

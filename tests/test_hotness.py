@@ -10,12 +10,12 @@ import time
 
 import numpy as np
 
-from cuda_acceleratedvectordatabaseengine_tpu import (
+from cuda_acceleratedvectordatabaseengine import (
     IVFFlatConfig,
     IVFFlatIndex,
     SearchParams,
 )
-from cuda_acceleratedvectordatabaseengine_tpu.io_host import (
+from cuda_acceleratedvectordatabaseengine.io_host import (
     AccessPattern,
     StreamingIVFFlatIndex,
 )
@@ -81,10 +81,10 @@ def test_hot_restage_recovers_hits(rng):
 def test_engine_background_loop_restages(tmp_path, rng):
     """The server's hotness loop schedules stage jobs into the throttled
     PrefetchScheduler for live streaming-tier indices."""
-    from cuda_acceleratedvectordatabaseengine_tpu.server.config import (
+    from cuda_acceleratedvectordatabaseengine.server.config import (
         ServerConfig,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.server.service import (
+    from cuda_acceleratedvectordatabaseengine.server.service import (
         VdbEngine,
     )
 
@@ -123,7 +123,7 @@ def test_engine_background_loop_restages(tmp_path, rng):
 def test_aligned_reader_feeds_adaptive_prefetcher(tmp_path):
     """P2 wired: sequential read_aligned traffic classifies SEQUENTIAL
     and issues WILLNEED readahead for the predicted next offsets."""
-    from cuda_acceleratedvectordatabaseengine_tpu.storage.shard_store import (
+    from cuda_acceleratedvectordatabaseengine.storage.shard_store import (
         AlignedReader,
     )
 

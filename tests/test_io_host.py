@@ -6,12 +6,12 @@ import time
 import numpy as np
 import pytest
 
-from cuda_acceleratedvectordatabaseengine_tpu import (
+from cuda_acceleratedvectordatabaseengine import (
     IVFFlatConfig,
     IVFFlatIndex,
     SearchParams,
 )
-from cuda_acceleratedvectordatabaseengine_tpu.io_host import (
+from cuda_acceleratedvectordatabaseengine.io_host import (
     AccessPattern,
     AdaptivePrefetcher,
     HbmListCache,
@@ -94,12 +94,12 @@ def test_streaming_hit_rate_improves(rng):
     assert streaming.cache.hits > 0
 
 
-def test_streaming_pallas_scan_parity(rng):
-    """The TPU cache-scan path (Pallas sorted kernel over the slot arena,
+def test_streaming_pallas_scan_parity(rng, interpret_grouped):
+    """The GPU cache-scan path (grouped Pallas kernel over the slot arena,
     sentinel-padded fixed-width waves) must match the resident index."""
     idx, _ = _build(rng)
     streaming = StreamingIVFFlatIndex(
-        idx, cache_slots=8, scan_impl="pallas_sorted"
+        idx, cache_slots=8, scan_impl="grouped"
     )
     q = rng.standard_normal((5, 16)).astype(np.float32)
     p = SearchParams(nprobe=6, k=10)
@@ -109,12 +109,12 @@ def test_streaming_pallas_scan_parity(rng):
     np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-5)
 
 
-def test_streaming_pallas_multi_wave(rng):
+def test_streaming_pallas_multi_wave(rng, interpret_grouped):
     """Pallas cache scan across multiple waves (cache smaller than the
     probe working set) still merges to the resident answer."""
     idx, _ = _build(rng, nlist=16)
     streaming = StreamingIVFFlatIndex(
-        idx, cache_slots=5, scan_impl="pallas_sorted"
+        idx, cache_slots=5, scan_impl="grouped"
     )
     q = rng.standard_normal((3, 16)).astype(np.float32)
     p = SearchParams(nprobe=12, k=5)
@@ -126,10 +126,10 @@ def test_streaming_pallas_multi_wave(rng):
 def test_streaming_from_store(rng):
     """from_store (the true >HBM entry point) matches a resident index
     built from the same data — no base index ever exists on device."""
-    from cuda_acceleratedvectordatabaseengine_tpu.io_host.streaming import (
+    from cuda_acceleratedvectordatabaseengine.io_host.streaming import (
         HostListStore,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.ops.kmeans import (
+    from cuda_acceleratedvectordatabaseengine.ops.kmeans import (
         kmeans_assign,
     )
     import jax.numpy as jnp
@@ -150,12 +150,12 @@ def test_streaming_from_store(rng):
     np.testing.assert_array_equal(ids_out, i_ref)
 
 
-def test_streaming_grouped_scan_parity(rng):
-    """The grouped Pallas kernel (the TPU serving default) over the slot
+def test_streaming_grouped_scan_parity(rng, interpret_grouped):
+    """The grouped Pallas kernel (the GPU serving default) over the slot
     cache must match the resident index, including multi-wave splits."""
     idx, _ = _build(rng, nlist=16)
     streaming = StreamingIVFFlatIndex(
-        idx, cache_slots=8, scan_impl="pallas_grouped"
+        idx, cache_slots=8, scan_impl="grouped"
     )
     q = rng.standard_normal((5, 16)).astype(np.float32)
     p = SearchParams(nprobe=12, k=10)
@@ -186,7 +186,7 @@ def test_streaming_int8_base_exact_parity(rng):
     assert streaming.cache.cache_arena.dtype == np.int8
 
 
-def test_streaming_int8_grouped_multiwave(rng):
+def test_streaming_int8_grouped_multiwave(rng, interpret_grouped):
     """int8 store + grouped kernel + cache smaller than the probe working
     set: wave-split quantized scan still merges to the resident answer."""
     x = rng.standard_normal((4000, 16)).astype(np.float32)
@@ -194,7 +194,7 @@ def test_streaming_int8_grouped_multiwave(rng):
     idx.train(x)
     idx.add(x)
     streaming = StreamingIVFFlatIndex(
-        idx, cache_slots=5, scan_impl="pallas_grouped"
+        idx, cache_slots=5, scan_impl="grouped"
     )
     q = rng.standard_normal((4, 16)).astype(np.float32)
     p = SearchParams(nprobe=16, k=10)
@@ -205,7 +205,7 @@ def test_streaming_int8_grouped_multiwave(rng):
 
 
 def test_host_store_lookup_ids(rng):
-    from cuda_acceleratedvectordatabaseengine_tpu.io_host.streaming import (
+    from cuda_acceleratedvectordatabaseengine.io_host.streaming import (
         HostListStore,
     )
 
@@ -216,7 +216,7 @@ def test_host_store_lookup_ids(rng):
     lists = np.array([[0, 2, -1], [2, 0, 2]])
     offs = np.array([[1, 2, 0], [0, 0, 1]])
     got = store.lookup_ids(lists, offs)
-    from cuda_acceleratedvectordatabaseengine_tpu.models.arena import (
+    from cuda_acceleratedvectordatabaseengine.models.arena import (
         INVALID_ID,
     )
 
@@ -249,7 +249,7 @@ def test_adaptive_prefetcher_classification():
 
 
 def test_adaptive_prefetcher_issues_readahead(tmp_path, rng):
-    from cuda_acceleratedvectordatabaseengine_tpu.storage.shard_store import (
+    from cuda_acceleratedvectordatabaseengine.storage.shard_store import (
         AlignedReader,
     )
 

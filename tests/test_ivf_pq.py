@@ -5,12 +5,12 @@ exact rerank, and recall vs the oracle."""
 import numpy as np
 import pytest
 
-from cuda_acceleratedvectordatabaseengine_tpu import (
+from cuda_acceleratedvectordatabaseengine import (
     IVFPQConfig,
     IVFPQIndex,
     SearchParams,
 )
-from cuda_acceleratedvectordatabaseengine_tpu.models.arena import INVALID_ID
+from cuda_acceleratedvectordatabaseengine.models.arena import INVALID_ID
 
 
 def _recall(found_ids, true_ids):
@@ -34,7 +34,7 @@ def test_pq_ops_roundtrip(rng):
     """Codes must reconstruct vectors well enough that ADC ≈ true distance."""
     import jax
     import jax.numpy as jnp
-    from cuda_acceleratedvectordatabaseengine_tpu.ops.pq import (
+    from cuda_acceleratedvectordatabaseengine.ops.pq import (
         pq_adc_lookup,
         pq_distance_tables,
         pq_encode,
@@ -163,49 +163,101 @@ def test_ivf_pq_int8_raw_rerank(rng, oracle):
     np.testing.assert_allclose(arena[l, 0], x[uid], rtol=0.1, atol=0.05)
 
 
-@pytest.mark.parametrize("metric", ["L2", "InnerProduct"])
-def test_pallas_pq_scan_matches_xla(rng, metric):
-    """The grouped Pallas ADC kernel (decode-staging) must produce the same
-    candidates and distances as the XLA table-lookup ADC."""
-    import jax.numpy as jnp
-    from cuda_acceleratedvectordatabaseengine_tpu.models.ivf_pq import (
+def _pq_index(rng, metric="L2", n=4000, dim=32, nlist=8, m=4):
+    from cuda_acceleratedvectordatabaseengine.models.ivf_pq import (
         IVFPQConfig,
         IVFPQIndex,
     )
 
-    n, dim, nlist, m = 4000, 32, 8, 4
     x = rng.standard_normal((n, dim)).astype(np.float32)
-    q = rng.standard_normal((16, dim)).astype(np.float32)
+    idx = IVFPQIndex(IVFPQConfig(dimension=dim, nlist=nlist, m=m,
+                                 metric=metric))
+    idx.train(x)
+    idx.add(x)
+    return idx
 
-    def build(impl):
-        idx = IVFPQIndex(IVFPQConfig(
-            dimension=dim, nlist=nlist, m=m, metric=metric,
-            scan_impl=impl,
-        ))
-        idx.train(x)
-        idx.add(x)
-        return idx
 
-    idx_x = build("xla")
-    d1, i1 = idx_x.search(q, SearchParams(nprobe=nlist, k=8))
-    idx_x.config.scan_impl = "pallas"   # same arenas, kernel path
-    d2, i2 = idx_x.search(q, SearchParams(nprobe=nlist, k=8))
-    np.testing.assert_array_equal(i1, i2)
-    np.testing.assert_allclose(d1, d2, rtol=2e-4, atol=2e-4)
+def _decoded_points(idx):
+    """[nlist, cap, D] fp32 decoded stored points c_l + r̂ (numpy)."""
+    cb = np.asarray(idx.codebooks)                 # [m, ks, dsub]
+    codes = np.asarray(idx.code_arena).astype(np.int64)   # [nlist, cap, m]
+    r = cb[np.arange(cb.shape[0]), codes]          # [nlist, cap, m, dsub]
+    r = r.reshape(codes.shape[0], codes.shape[1], -1)
+    return r + np.asarray(idx.centroids)[:, None, :]
 
-    # with exact rerank on top (both impls feed the same rerank)
-    d3, i3 = idx_x.search(
-        q, SearchParams(nprobe=nlist, k=8, use_exact_rerank=True)
+
+@pytest.mark.parametrize("metric", ["L2", "InnerProduct"])
+def test_pq_adc_scan_matches_decoded_reference(rng, metric):
+    """The XLA ADC scan (per-probe distance tables + gather lookup) returns
+    exactly the distances to the decoded stored points, and the exact
+    top-k of them over the probe union."""
+    import jax.numpy as jnp
+
+    from cuda_acceleratedvectordatabaseengine.ops.pq import scan_probed_codes
+
+    idx = _pq_index(rng, metric)
+    nlist, k = 8, 8
+    q = rng.standard_normal((6, 32)).astype(np.float32)
+    probe = np.stack([rng.choice(nlist, 3, replace=False)
+                      for _ in range(6)]).astype(np.int32)
+    d, pos = scan_probed_codes(
+        jnp.asarray(q), idx.code_arena_t, idx.counts, idx.centroids,
+        idx.codebooks, jnp.asarray(probe), k,
+        inner_product=metric == "InnerProduct",
     )
-    idx_x.config.scan_impl = "xla"
-    d4, i4 = idx_x.search(
-        q, SearchParams(nprobe=nlist, k=8, use_exact_rerank=True)
-    )
-    np.testing.assert_array_equal(i3, i4)
-    np.testing.assert_allclose(d3, d4, rtol=2e-4, atol=2e-4)
+    d, pos = np.asarray(d), np.asarray(pos)
+    dec = _decoded_points(idx)
+    counts = np.asarray(idx.counts)
+    cap = idx.capacity
+    for b in range(6):
+        cand_d, cand_p = [], []
+        for l in probe[b]:
+            pts = dec[l, :counts[l]].astype(np.float64)
+            if metric == "InnerProduct":
+                cand_d.append(-(pts @ q[b]))
+            else:
+                cand_d.append(((pts - q[b]) ** 2).sum(1))
+            cand_p.append(l * cap + np.arange(counts[l]))
+        cd, cp = np.concatenate(cand_d), np.concatenate(cand_p)
+        best = np.argsort(cd, kind="stable")[:k]
+        np.testing.assert_allclose(d[b], cd[best], rtol=1e-4, atol=1e-3)
+        assert set(pos[b].tolist()) == set(cp[best].tolist())
 
 
-def test_pallas_pq_k_inner_shortlist(rng):
+@pytest.mark.parametrize("n_shards", [1, 2, 8])
+def test_pq_adc_striping_matches_unstriped(rng, n_shards):
+    """Slot striping of the XLA ADC scan: per-stripe scans with
+    ``slot_stride``/``slot_offset`` merged by top-k equal the unstriped
+    scan, positions in logical slot space (the ShardedIVFPQIndex path)."""
+    import jax.numpy as jnp
+
+    from cuda_acceleratedvectordatabaseengine.ops.pq import scan_probed_codes
+
+    idx = _pq_index(rng)
+    nlist, k = 8, 10
+    q = jnp.asarray(rng.standard_normal((5, 32)).astype(np.float32))
+    probe = jnp.asarray(np.stack([rng.choice(nlist, 4, replace=False)
+                                  for _ in range(5)]).astype(np.int32))
+    rest = (idx.counts, idx.centroids, idx.codebooks, probe, k)
+    rd, rp = scan_probed_codes(q, idx.code_arena_t, *rest)
+    cap = idx.capacity
+    parts = [
+        scan_probed_codes(q, idx.code_arena_t[:, :, s::n_shards], *rest,
+                          slot_stride=n_shards, slot_offset=s,
+                          global_capacity=cap)
+        for s in range(n_shards)
+    ]
+    d = np.concatenate([np.asarray(p[0]) for p in parts], axis=1)
+    pos = np.concatenate([np.asarray(p[1]) for p in parts], axis=1)
+    order = np.argsort(d, axis=1, kind="stable")[:, :k]
+    np.testing.assert_allclose(np.take_along_axis(d, order, 1),
+                               np.asarray(rd), rtol=1e-5, atol=1e-5)
+    for b in range(5):
+        assert set(np.take_along_axis(pos, order, 1)[b].tolist()) == set(
+            np.asarray(rp)[b].tolist())
+
+
+def test_pq_k_inner_shortlist(rng):
     """k_inner (per-probed-list shortlist depth) feeds the host-rerank
     capacity tier: k_inner >= cap must be EXACT, and a truncated k_inner
     must return per-list-bounded, correctly ordered candidates whose
@@ -213,47 +265,22 @@ def test_pallas_pq_k_inner_shortlist(rng):
     truncated)."""
     import jax.numpy as jnp
 
-    from cuda_acceleratedvectordatabaseengine_tpu.models.ivf_pq import (
-        IVFPQConfig,
-        IVFPQIndex,
-    )
-    from cuda_acceleratedvectordatabaseengine_tpu.ops import pallas_scan
-    from cuda_acceleratedvectordatabaseengine_tpu.ops.distance import (
-        Metric,
-    )
+    from cuda_acceleratedvectordatabaseengine.ops.pq import scan_probed_codes
 
-    n, dim, nlist, m = 4000, 32, 8, 4
-    x = rng.standard_normal((n, dim)).astype(np.float32)
-    q = rng.standard_normal((8, dim)).astype(np.float32)
-    idx = IVFPQIndex(IVFPQConfig(dimension=dim, nlist=nlist, m=m))
-    idx.train(x)
-    idx.add(x)
+    nlist = 8
+    idx = _pq_index(rng)
+    q = rng.standard_normal((8, 32)).astype(np.float32)
     probe = jnp.tile(jnp.arange(nlist, dtype=jnp.int32), (8, 1))
-    args = (jnp.asarray(q), idx.code_arena_t, idx.code_sq,
-            idx.counts.astype(jnp.int32), idx.centroids, idx.codebooks,
-            probe)
+    args = (jnp.asarray(q), idx.code_arena_t, idx.counts, idx.centroids,
+            idx.codebooks, probe)
     R = 64
-    d_exact, p_exact = pallas_scan.scan_probed_codes_pallas_grouped(
-        *args, R, Metric.L2, interpret=True
-    )
+    d_exact, p_exact = scan_probed_codes(*args, R)
     # full-depth k_inner == exact
-    d_full, p_full = pallas_scan.scan_probed_codes_pallas_grouped(
-        *args, R, Metric.L2, interpret=True, k_inner=idx.capacity
-    )
+    d_full, p_full = scan_probed_codes(*args, R, k_inner=idx.capacity)
     np.testing.assert_array_equal(p_exact, p_full)
     np.testing.assert_allclose(d_exact, d_full, rtol=1e-6)
 
-    # emit_full (full rows + one top-R) must ALSO be exact — it's the
-    # default deep-shortlist path (k-pass cost is linear in R).
-    d_ef, p_ef = pallas_scan.scan_probed_codes_pallas_grouped(
-        *args, R, Metric.L2, interpret=True, emit_full=True
-    )
-    np.testing.assert_array_equal(p_exact, p_ef)
-    np.testing.assert_allclose(d_exact, d_ef, rtol=1e-6)
-
-    d_tr, p_tr = pallas_scan.scan_probed_codes_pallas_grouped(
-        *args, R, Metric.L2, interpret=True, k_inner=8
-    )
+    d_tr, p_tr = scan_probed_codes(*args, R, k_inner=8)
     cap = idx.capacity
     for b in range(8):
         # global best always survives (its in-list rank is 1)
@@ -269,8 +296,6 @@ def test_pallas_pq_k_inner_shortlist(rng):
             return_counts=True,
         )
         assert (cnts <= 8).all()
-        # every truncated candidate is a real exact-ADC candidate: its
-        # distance appears in a full-depth scan of its own list
         sub = set(np.asarray(p_exact[b]).tolist())
         overlap = len(sub & set(np.asarray(p_tr[b]).tolist()))
         assert overlap >= R // 2  # shortlist stays close to exact top-R
@@ -293,7 +318,7 @@ def test_opq_fit_reduces_reconstruction_error(rng):
     import jax
     import jax.numpy as jnp
 
-    from cuda_acceleratedvectordatabaseengine_tpu.ops.pq import (
+    from cuda_acceleratedvectordatabaseengine.ops.pq import (
         opq_fit,
         pq_decode,
         pq_encode,
@@ -319,16 +344,15 @@ def test_opq_fit_reduces_reconstruction_error(rng):
 
 
 def test_opq_rotation_is_isometric_at_high_dim(rng):
-    """Regression for the r3/r4 OPQ deep-rerank plateau (PQ_r05): fp32
-    matmuls ride a single bf16 MXU pass by default, so U @ Vᵀ of the
-    Procrustes SVD came back non-orthogonal by ~2.5e-3 at dim ≥ 128 on
-    decaying spectra — a systematic rotated-frame metric distortion ~10×
-    bf16 storage noise (shortlist containment 1.0 while recall plateaued
-    at 0.981). opq_fit must publish an isometry to fp32 roundoff."""
+    """Regression for the OPQ deep-rerank plateau: fp32 matmuls may run at
+    reduced precision by default, so U @ Vᵀ of the Procrustes SVD can come
+    back non-orthogonal at dim ≥ 128 on decaying spectra — a systematic
+    rotated-frame metric distortion well above bf16 storage noise.
+    opq_fit must publish an isometry to fp32 roundoff."""
     import jax
     import jax.numpy as jnp
 
-    from cuda_acceleratedvectordatabaseengine_tpu.ops.pq import opq_fit
+    from cuda_acceleratedvectordatabaseengine.ops.pq import opq_fit
 
     dim = 128
     x = jnp.asarray(_anisotropic(rng, 8000, dim, decay=0.96))

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from cuda_acceleratedvectordatabaseengine_tpu import native
+from cuda_acceleratedvectordatabaseengine import native
 
 
 def test_native_builds_and_loads():

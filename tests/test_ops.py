@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cuda_acceleratedvectordatabaseengine_tpu.ops import (
+from cuda_acceleratedvectordatabaseengine.ops import (
     Metric,
     kmeans_assign,
     kmeans_fit,
@@ -19,7 +19,7 @@ from cuda_acceleratedvectordatabaseengine_tpu.ops import (
     scan_probed_lists,
     topk_smallest,
 )
-from cuda_acceleratedvectordatabaseengine_tpu.ops.scan import scan_flat
+from cuda_acceleratedvectordatabaseengine.ops.scan import scan_flat
 
 
 @pytest.mark.parametrize("metric", ["L2", "InnerProduct", "Cosine"])
@@ -211,10 +211,10 @@ def test_scan_probed_lists_handles_invalid_probe(rng):
 
 
 def test_utils_logging_and_profiling(capsys):
-    from cuda_acceleratedvectordatabaseengine_tpu.utils.logging import (
+    from cuda_acceleratedvectordatabaseengine.utils.logging import (
         get_logger,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.utils.profiling import (
+    from cuda_acceleratedvectordatabaseengine.utils.profiling import (
         Timer,
         timed,
     )
@@ -228,33 +228,3 @@ def test_utils_logging_and_profiling(capsys):
     assert t.count == 1
     out, ms = timed(lambda v: v + 1, jnp.zeros((4,)))
     assert ms >= 0 and float(out[0]) == 1.0
-
-
-def test_ragged_scan_equals_gather_scan(rng):
-    """The list-centric ragged grouped-matmul scan must return exactly the
-    gather scan's results (same candidates, same distances)."""
-    from cuda_acceleratedvectordatabaseengine_tpu.ops.scan import (
-        scan_probed_lists_ragged,
-    )
-
-    nlist, cap, dim, B, P, k = 8, 32, 16, 5, 3, 6
-    arena = np.zeros((nlist, cap, dim), np.float32)
-    counts = rng.integers(1, cap + 1, nlist).astype(np.int32)
-    for l in range(nlist):
-        arena[l, :counts[l]] = rng.standard_normal((counts[l], dim))
-    q = rng.standard_normal((B, dim)).astype(np.float32)
-    probe = np.stack([
-        rng.choice(nlist, P, replace=False) for _ in range(B)
-    ]).astype(np.int32)
-    probe[0, -1] = -1  # invalid probe handled identically
-    args = (
-        jnp.asarray(q), jnp.asarray(arena),
-        jnp.asarray((arena ** 2).sum(-1)), jnp.asarray(counts),
-        jnp.asarray(probe), k,
-    )
-    for metric in (Metric.L2, Metric.INNER_PRODUCT):
-        d1, p1 = scan_probed_lists(*args, metric)
-        d2, p2 = scan_probed_lists_ragged(*args, metric, approx=False)
-        np.testing.assert_array_equal(np.asarray(p1), np.asarray(p2))
-        np.testing.assert_allclose(np.asarray(d1), np.asarray(d2),
-                                   rtol=1e-5, atol=1e-5)

@@ -1,22 +1,22 @@
-"""Multi-chip tests on the virtual 8-device CPU mesh (SURVEY.md §4: the
-TPU-world answer to 'test multi-node without a cluster')."""
+"""Multi-device tests on the virtual 8-device CPU mesh (SURVEY.md §4: test
+multi-device sharding without a cluster)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cuda_acceleratedvectordatabaseengine_tpu import (
+from cuda_acceleratedvectordatabaseengine import (
     IVFFlatConfig,
     IVFFlatIndex,
     SearchParams,
 )
-from cuda_acceleratedvectordatabaseengine_tpu.parallel import (
+from cuda_acceleratedvectordatabaseengine.parallel import (
     ShardedIVFFlatIndex,
     make_mesh,
     sharded_kmeans_lloyd_step,
 )
-from cuda_acceleratedvectordatabaseengine_tpu.parallel.sharded import (
+from cuda_acceleratedvectordatabaseengine.parallel.sharded import (
     _striping_perm,
 )
 from jax.sharding import NamedSharding, PartitionSpec as P
@@ -32,31 +32,10 @@ def _build(rng, n=4000, dim=32, nlist=16, metric="L2"):
     return idx, x
 
 
-def test_stripe_scan_capacity_bound():
-    from cuda_acceleratedvectordatabaseengine_tpu.parallel.sharded import (
-        _stripe_scan_capacity,
-    )
-    # global_cap is the LOGICAL per-list capacity (as at the call sites):
-    # 2442 occupied of 3328 allocated over 8 stripes → local cap 416,
-    # ceil(2442/8)=306 → 384 after 128-tiling, < 416 → shrink.
-    assert _stripe_scan_capacity(2442, 3328, 8) == 384
-    # boundary: occupancy that tiles exactly to the local cap → None
-    assert _stripe_scan_capacity(3328, 3328, 8) is None
-    # no shrink → None (full local scan)
-    assert _stripe_scan_capacity(3328, 3328, 1) is None
-    assert _stripe_scan_capacity(None, 1024, 8) is None
-    assert _stripe_scan_capacity(0, 1024, 8) is None
-
-
-def test_sharded_occupied_prefix_hint_is_exact(rng):
-    """A striped arena with allocation headroom must (a) actually produce a
-    shrunken per-stripe scan bound and (b) stay bit-identical to the
-    single-chip search through the Pallas kernels — the multi-chip reach of
-    the round-3 scan_capacity optimization."""
-    from cuda_acceleratedvectordatabaseengine_tpu.parallel.sharded import (
-        _stripe_scan_capacity,
-    )
-
+def test_sharded_occupied_prefix_hint_is_exact(rng, interpret_grouped):
+    """A striped arena with allocation headroom (the grouped kernel bounds
+    each list's loop by its own count, never the allocation) stays
+    identical to the single-device search."""
     x = rng.standard_normal((3000, 32)).astype(np.float32)
     cfg = IVFFlatConfig(dimension=32, nlist=8, dtype="float32",
                         max_capacity_factor=8.0)
@@ -65,11 +44,8 @@ def test_sharded_occupied_prefix_hint_is_exact(rng):
     # Pre-grow well past the fill so the occupied prefix is a real subset.
     idx.arena = idx.arena.grow(-(-int(3000 / 8 * 3) // 128) * 128)
     idx.add(x)
-    sharded = ShardedIVFFlatIndex(idx, make_mesh(2),
-                                  scan_impl="pallas_grouped")
-    sc = _stripe_scan_capacity(sharded._counts_max, sharded.global_cap,
-                               sharded.n_shards)
-    assert sc is not None and sc < sharded.global_cap // sharded.n_shards
+    sharded = ShardedIVFFlatIndex(idx, make_mesh(2), scan_impl="grouped")
+    assert int(np.asarray(idx.arena.counts).max()) < sharded.global_cap // 2
     q = rng.standard_normal((6, 32)).astype(np.float32)
     params = SearchParams(nprobe=8, k=10)
     d_ref, ids_ref = idx.search(q, params)
@@ -190,22 +166,7 @@ def test_sharded_arena_is_actually_distributed(rng):
         assert s.data.size == total // 8
 
 
-@pytest.mark.parametrize("n_shards", [2, 8])
-def test_sharded_ragged_scan_equals_single_chip(rng, n_shards):
-    """Slot-striped sharding must also be exact under the list-centric
-    ragged grouped-matmul scan."""
-    idx, x = _build(rng)
-    q = rng.standard_normal((7, 32)).astype(np.float32)
-    params = SearchParams(nprobe=8, k=10)
-    d_ref, ids_ref = idx.search(q, params)
-    sharded = ShardedIVFFlatIndex(idx, make_mesh(n_shards),
-                                  scan_impl="ragged")
-    d, ids = sharded.search(q, params)
-    np.testing.assert_array_equal(ids, ids_ref)
-    np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-5)
-
-
-def test_sharded_int8_arena(rng):
+def test_sharded_int8_arena(rng, interpret_grouped):
     """int8 striped arena: per-list scales replicate; results match the
     single-chip int8 index exactly."""
     import jax.numpy as jnp
@@ -218,7 +179,7 @@ def test_sharded_int8_arena(rng):
     q = rng.standard_normal((5, 32)).astype(np.float32)
     params = SearchParams(nprobe=8, k=10)
     d_ref, ids_ref = idx.search(q, params)
-    for impl in ("gather", "ragged"):
+    for impl in ("gather", "grouped"):
         sharded = ShardedIVFFlatIndex(idx, make_mesh(4), scan_impl=impl)
         d, ids = sharded.search(q, params)
         np.testing.assert_array_equal(ids, ids_ref)
@@ -232,7 +193,7 @@ def test_streaming_int8_base(rng):
     tests/test_io_host.py::test_streaming_int8_base_exact_parity."""
     import jax.numpy as jnp
 
-    from cuda_acceleratedvectordatabaseengine_tpu.io_host import (
+    from cuda_acceleratedvectordatabaseengine.io_host import (
         StreamingIVFFlatIndex,
     )
 
@@ -252,7 +213,7 @@ def test_streaming_int8_base(rng):
 
 def _build_pq(rng, n=4000, dim=32, nlist=16, m=8, keep_raw=True,
               metric="L2"):
-    from cuda_acceleratedvectordatabaseengine_tpu.models.ivf_pq import (
+    from cuda_acceleratedvectordatabaseengine.models.ivf_pq import (
         IVFPQConfig,
         IVFPQIndex,
     )
@@ -268,10 +229,9 @@ def _build_pq(rng, n=4000, dim=32, nlist=16, m=8, keep_raw=True,
 
 @pytest.mark.parametrize("n_shards", [2, 8])
 def test_sharded_pq_adc_equals_single_chip(rng, n_shards):
-    """Sharded ADC (rerank off) must be bit-exact vs the single-chip
-    grouped Pallas ADC kernel — same candidates, same quantized
-    distances."""
-    from cuda_acceleratedvectordatabaseengine_tpu.parallel import (
+    """Sharded ADC (rerank off) must match the single-device XLA ADC
+    scan — same candidates, same quantized distances."""
+    from cuda_acceleratedvectordatabaseengine.parallel import (
         ShardedIVFPQIndex,
     )
 
@@ -298,7 +258,7 @@ def test_sharded_pq_adc_equals_single_chip(rng, n_shards):
 def test_sharded_pq_rerank_recall_at_least_single_chip(rng):
     """Per-chip exact rerank merges a SUPERSET of the single-chip rerank
     pool — recall vs exact ground truth must not regress."""
-    from cuda_acceleratedvectordatabaseengine_tpu.parallel import (
+    from cuda_acceleratedvectordatabaseengine.parallel import (
         ShardedIVFPQIndex,
     )
 
@@ -323,7 +283,7 @@ def test_sharded_pq_rerank_recall_at_least_single_chip(rng):
 
 
 def test_sharded_pq_codes_actually_distributed(rng):
-    from cuda_acceleratedvectordatabaseengine_tpu.parallel import (
+    from cuda_acceleratedvectordatabaseengine.parallel import (
         ShardedIVFPQIndex,
     )
 
@@ -335,32 +295,32 @@ def test_sharded_pq_codes_actually_distributed(rng):
         assert s.data.size == sharded.codes_t_s.size // 8
 
 
-@pytest.mark.parametrize("impl", ["pallas", "pallas_sorted",
-                                  "pallas_grouped"])
-@pytest.mark.parametrize("n_shards", [2, 8])
-def test_sharded_pallas_scan_equals_single_chip(rng, impl, n_shards):
-    """The fast Pallas kernels must be exact through shard_map slot
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
+def test_sharded_pallas_scan_equals_single_chip(rng, n_shards,
+                                                interpret_grouped):
+    """The grouped Pallas kernel must be exact through shard_map slot
     striping (interpret mode on the CPU mesh) — the path that makes
-    multi-chip serving run at single-chip kernel speed."""
+    multi-device serving run at single-device kernel speed."""
     idx, x = _build(rng)
     q = rng.standard_normal((7, 32)).astype(np.float32)
     params = SearchParams(nprobe=8, k=10)
     d_ref, ids_ref = idx.search(q, params)
-    sharded = ShardedIVFFlatIndex(idx, make_mesh(n_shards), scan_impl=impl)
-    assert sharded.interpret  # CPU mesh → interpreter
+    sharded = ShardedIVFFlatIndex(idx, make_mesh(n_shards),
+                                  scan_impl="grouped")
     d, ids = sharded.search(q, params)
     np.testing.assert_array_equal(ids, ids_ref)
     np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("impl", ["pallas_sorted", "pallas_grouped"])
-def test_sharded_pallas_int8(rng, impl):
-    """int8 striped arena through the Pallas kernels: per-list dequant
-    scales + exact stored norms must survive slot striping."""
+@pytest.mark.parametrize("metric", ["L2", "InnerProduct"])
+def test_sharded_pallas_int8(rng, metric, interpret_grouped):
+    """int8 striped arena through the grouped kernel: per-row dequant
+    scales, residual anchors and stored norms must survive slot striping."""
     import jax.numpy as jnp
 
+    impl = "grouped"
     x = rng.standard_normal((4000, 32)).astype(np.float32)
-    cfg = IVFFlatConfig(dimension=32, nlist=16, dtype="int8")
+    cfg = IVFFlatConfig(dimension=32, nlist=16, dtype="int8", metric=metric)
     idx = IVFFlatIndex(cfg)
     idx.train(x)
     idx.build_from_device(jnp.asarray(x))
@@ -374,8 +334,7 @@ def test_sharded_pallas_int8(rng, impl):
     d, ids = sharded.search(q, params)
     np.testing.assert_array_equal(ids, ids_ref)
     np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-5)
-    # …and with default fp32 staging the quantized math is exact, so the
-    # XLA gather path agrees exactly too.
+    # …and the quantized math matches the XLA gather path.
     d_x, ids_x = idx.search(q, params)
     np.testing.assert_array_equal(ids, ids_x)
     np.testing.assert_allclose(d, d_x, rtol=1e-5, atol=1e-5)
@@ -384,10 +343,10 @@ def test_sharded_pallas_int8(rng, impl):
 def test_sharded_kmeans_fit_quality(rng):
     """Full DP training converges like the single-chip trainer: distortion
     on clustered data within 10% of ops.kmeans.kmeans_fit."""
-    from cuda_acceleratedvectordatabaseengine_tpu.ops.kmeans import (
+    from cuda_acceleratedvectordatabaseengine.ops.kmeans import (
         kmeans_fit,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.parallel import (
+    from cuda_acceleratedvectordatabaseengine.parallel import (
         sharded_kmeans_fit,
     )
 
@@ -458,11 +417,11 @@ def test_build_on_mesh_full_train_pack_search(rng):
 def test_sharded_pq_opq_equals_single_chip(rng):
     """OPQ-rotated PQ over the mesh: queries rotate into the published
     frame; mesh-N results dominate mesh-1 (per-chip rerank-pool union)."""
-    from cuda_acceleratedvectordatabaseengine_tpu.models.ivf_pq import (
+    from cuda_acceleratedvectordatabaseengine.models.ivf_pq import (
         IVFPQConfig,
         IVFPQIndex,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.parallel import (
+    from cuda_acceleratedvectordatabaseengine.parallel import (
         ShardedIVFPQIndex,
     )
 

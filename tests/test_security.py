@@ -7,14 +7,14 @@ import subprocess
 import grpc
 import pytest
 
-from cuda_acceleratedvectordatabaseengine_tpu.server.config import ServerConfig
-from cuda_acceleratedvectordatabaseengine_tpu.server.grpc_api import (
+from cuda_acceleratedvectordatabaseengine.server.config import ServerConfig
+from cuda_acceleratedvectordatabaseengine.server.grpc_api import (
     AdminServiceClient,
     HealthClient,
     QueryServiceClient,
 )
-from cuda_acceleratedvectordatabaseengine_tpu.server.main import build_server
-from cuda_acceleratedvectordatabaseengine_tpu.server.proto import (
+from cuda_acceleratedvectordatabaseengine.server.main import build_server
+from cuda_acceleratedvectordatabaseengine.server.proto import (
     health_pb2,
     vdb_pb2,
 )

@@ -15,13 +15,13 @@ import grpc
 import numpy as np
 import pytest
 
-from cuda_acceleratedvectordatabaseengine_tpu.server.config import ServerConfig
-from cuda_acceleratedvectordatabaseengine_tpu.server.grpc_api import (
+from cuda_acceleratedvectordatabaseengine.server.config import ServerConfig
+from cuda_acceleratedvectordatabaseengine.server.grpc_api import (
     AdminServiceClient,
     QueryServiceClient,
 )
-from cuda_acceleratedvectordatabaseengine_tpu.server.main import build_server
-from cuda_acceleratedvectordatabaseengine_tpu.server.proto import vdb_pb2
+from cuda_acceleratedvectordatabaseengine.server.main import build_server
+from cuda_acceleratedvectordatabaseengine.server.proto import vdb_pb2
 
 DIM = 16
 
@@ -98,7 +98,7 @@ def test_engine_mesh_modes(tmp_path):
     """auto shards when >1 device is visible; off never does."""
     import jax
 
-    from cuda_acceleratedvectordatabaseengine_tpu.server.service import (
+    from cuda_acceleratedvectordatabaseengine.server.service import (
         VdbEngine,
     )
 
@@ -133,7 +133,7 @@ def test_sharded_lifecycle_flat(sharded_server):
     sharded view over the full mesh and every vector finds itself."""
     import jax
 
-    from cuda_acceleratedvectordatabaseengine_tpu.parallel import (
+    from cuda_acceleratedvectordatabaseengine.parallel import (
         ShardedIVFFlatIndex,
     )
 
@@ -238,7 +238,7 @@ def test_sharded_tombstone_replay_on_reload(sharded_server):
 def test_sharded_pq_lifecycle(sharded_server):
     """IVF-PQ epoch activates into the sharded ADC view; exact rerank
     (striped raw arena) recovers self-matches over the wire."""
-    from cuda_acceleratedvectordatabaseengine_tpu.parallel import (
+    from cuda_acceleratedvectordatabaseengine.parallel import (
         ShardedIVFPQIndex,
     )
 
@@ -262,7 +262,7 @@ def test_sharded_pq_lifecycle(sharded_server):
 def test_sharded_streaming_tier(sharded_server):
     """tier=streaming on a mesh activates the slot-striped HBM cache
     (aggregate cache budget scales with the slice) and serves searches."""
-    from cuda_acceleratedvectordatabaseengine_tpu.parallel import (
+    from cuda_acceleratedvectordatabaseengine.parallel import (
         ShardedStreamingIVFFlatIndex,
     )
 

@@ -7,20 +7,20 @@ import os
 import numpy as np
 import pytest
 
-from cuda_acceleratedvectordatabaseengine_tpu import (
+from cuda_acceleratedvectordatabaseengine import (
     IVFFlatConfig,
     IVFFlatIndex,
     IVFPQConfig,
     IVFPQIndex,
     SearchParams,
 )
-from cuda_acceleratedvectordatabaseengine_tpu.storage import (
+from cuda_acceleratedvectordatabaseengine.storage import (
     ArrowStorage,
     EpochManager,
     IndexManifest,
     ShardEntry,
 )
-from cuda_acceleratedvectordatabaseengine_tpu.storage.shard_store import (
+from cuda_acceleratedvectordatabaseengine.storage.shard_store import (
     AlignedReader,
     ShardManager,
 )
@@ -118,10 +118,10 @@ def test_ivf_flat_host_load_streaming_parity(tmp_path, rng):
     device arena (the >HBM activation path)."""
     import jax.numpy as jnp
 
-    from cuda_acceleratedvectordatabaseengine_tpu.io_host import (
+    from cuda_acceleratedvectordatabaseengine.io_host import (
         StreamingIVFFlatIndex,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.storage.snapshot import (
+    from cuda_acceleratedvectordatabaseengine.storage.snapshot import (
         load_ivf_flat_host,
     )
 
@@ -192,7 +192,7 @@ def test_ivf_pq_capacity_save_load(tmp_path, rng):
     (read-only). Composes the reference's declared rerank surface
     (``engine/ivf_flat_index.h:153-157``) with its declared host tier
     (``format/storage.h:124-173``)."""
-    from cuda_acceleratedvectordatabaseengine_tpu.storage.snapshot import (
+    from cuda_acceleratedvectordatabaseengine.storage.snapshot import (
         load_ivf_pq_capacity,
         save_ivf_pq,
     )

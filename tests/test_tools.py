@@ -12,7 +12,7 @@ import pytest
 
 
 def test_build_index_cli_synthetic_and_load(tmp_path, capsys):
-    from cuda_acceleratedvectordatabaseengine_tpu.tools.build_index import (
+    from cuda_acceleratedvectordatabaseengine.tools.build_index import (
         main,
     )
 
@@ -23,18 +23,18 @@ def test_build_index_cli_synthetic_and_load(tmp_path, capsys):
     ])
     assert rc == 0
     assert os.path.isfile(os.path.join(out, "manifest.json"))
-    from cuda_acceleratedvectordatabaseengine_tpu import IVFFlatIndex
+    from cuda_acceleratedvectordatabaseengine import IVFFlatIndex
 
     idx = IVFFlatIndex.load(out)
     assert idx.ntotal == 2000
 
 
 def test_build_index_cli_from_arrow_with_epoch(tmp_path, rng):
-    from cuda_acceleratedvectordatabaseengine_tpu.storage import (
+    from cuda_acceleratedvectordatabaseengine.storage import (
         ArrowStorage,
         EpochManager,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.tools.build_index import (
+    from cuda_acceleratedvectordatabaseengine.tools.build_index import (
         main,
     )
 
@@ -53,7 +53,7 @@ def test_build_index_cli_from_arrow_with_epoch(tmp_path, rng):
 
 
 def test_benchmark_cli_csv(tmp_path):
-    from cuda_acceleratedvectordatabaseengine_tpu.tools.benchmark import main
+    from cuda_acceleratedvectordatabaseengine.tools.benchmark import main
 
     out = str(tmp_path / "bench.csv")
     rc = main([
@@ -70,7 +70,7 @@ def test_benchmark_cli_csv(tmp_path):
 
 
 def test_recall_cli(capsys):
-    from cuda_acceleratedvectordatabaseengine_tpu.tools.recall_test import (
+    from cuda_acceleratedvectordatabaseengine.tools.recall_test import (
         main,
     )
 
@@ -89,17 +89,17 @@ def test_recall_cli(capsys):
 
 
 def test_load_test_cli_against_live_server(tmp_path, capsys, rng):
-    from cuda_acceleratedvectordatabaseengine_tpu.server.config import (
+    from cuda_acceleratedvectordatabaseengine.server.config import (
         ServerConfig,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.server.main import (
+    from cuda_acceleratedvectordatabaseengine.server.main import (
         build_server,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.server.grpc_api import (
+    from cuda_acceleratedvectordatabaseengine.server.grpc_api import (
         AdminServiceClient,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.server.proto import vdb_pb2
-    from cuda_acceleratedvectordatabaseengine_tpu.tools.load_test import main
+    from cuda_acceleratedvectordatabaseengine.server.proto import vdb_pb2
+    from cuda_acceleratedvectordatabaseengine.tools.load_test import main
 
     config = ServerConfig(
         shard_serving="off",  # single-chip semantics under the 8-dev CPU mesh
@@ -192,14 +192,14 @@ def test_autotune_cli_recommends_and_persists(tmp_path, capsys):
     the manifest so a reloaded index serves SearchParams(nprobe=0) with
     the tuned value (replaces the reference's static tuning table,
     README.md:154-167)."""
-    from cuda_acceleratedvectordatabaseengine_tpu import (
+    from cuda_acceleratedvectordatabaseengine import (
         IVFFlatIndex,
         SearchParams,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.tools.autotune import (
+    from cuda_acceleratedvectordatabaseengine.tools.autotune import (
         main as tune_main,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.tools.build_index import (
+    from cuda_acceleratedvectordatabaseengine.tools.build_index import (
         main as build_main,
     )
 
@@ -235,10 +235,10 @@ def test_autotune_cli_recommends_and_persists(tmp_path, capsys):
 def test_autotune_cli_ivf_pq_snapshot(tmp_path, capsys):
     """vdb-tune dispatches on snapshot kind: IVF-PQ snapshots calibrate
     through the shared coverage machinery."""
-    from cuda_acceleratedvectordatabaseengine_tpu.tools.autotune import (
+    from cuda_acceleratedvectordatabaseengine.tools.autotune import (
         main as tune_main,
     )
-    from cuda_acceleratedvectordatabaseengine_tpu.tools.build_index import (
+    from cuda_acceleratedvectordatabaseengine.tools.build_index import (
         main as build_main,
     )
 
